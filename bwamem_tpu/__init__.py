@@ -1,13 +1,14 @@
-"""bwamem_tpu — a TPU-native short-read seed-and-extend aligner.
+"""bwamem_tpu — a short-read seed-and-extend aligner in JAX.
 
 A ground-up re-design of the capabilities of sflorescu/BWA-MEM_GPU
-(bwa-gasal2: GPU-seeded, GPU-extended BWA-MEM 0.7.x) for TPU hardware:
+(bwa-gasal2: GPU-seeded, GPU-extended BWA-MEM 0.7.x) as batched JAX
+programs:
 
   * FMD-index SMEM seeding as batched, fixed-shape XLA programs
     (reference: src/GPUSeed/seed_gen.cu)
-  * banded affine-gap seed extension as a Pallas TPU kernel with
-    ksw_extend semantics (reference contract: src/bwamem.c:1791-1908
-    `decoy_cpu_align` / src/ksw.c `ksw_extend2`)
+  * banded affine-gap seed extension with ksw_extend semantics, as a
+    Pallas (Triton) GPU kernel beside its lax twin (reference contract:
+    src/bwamem.c:1791-1908 `decoy_cpu_align` / src/ksw.c `ksw_extend2`)
   * chaining / filtering / dedup / primary-marking / mapQ / CIGAR / SAM
     (reference: src/bwamem.c, src/bwa.c)
   * data-parallel scaling via jax.sharding over a device Mesh
@@ -16,7 +17,7 @@ A ground-up re-design of the capabilities of sflorescu/BWA-MEM_GPU
 Layout:
   index/     offline index toolchain + device-layout loader
   oracle/    pure-NumPy reference semantics (test anchors)
-  ops/       jitted + Pallas device kernels (seeding, extension)
+  ops/       jitted device programs + Pallas kernels (seeding, extension)
   pipeline/  host orchestration: chain, merge, SAM emit
   parallel/  mesh sharding of the alignment step
   io/        FASTA/FASTQ reading, SAM writing
@@ -27,28 +28,28 @@ __version__ = "0.1.0"
 
 # Rows/positions of large genomes need >32 bits (human fwd+rev ~2^32.5;
 # reference threads 33-bit positions via split words, seed_gen.cu:530-531).
-# XLA lowers int64 to int32 pairs on TPU; only row/position arrays are
-# int64 — counts, codes and lane indices stay int32.
+# Only row/position arrays are int64 — counts, codes and lane indices
+# stay int32.
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
 
 # Persistent compilation cache: the CLI is a one-shot process; without
-# this every invocation re-pays ~30 s of XLA compiles (the executables are
-# shape-bucketed, so the cache converges after a few runs).
+# it every invocation re-pays the XLA compiles (the executables are
+# shape-bucketed, so the cache converges after a few runs). Where
+# JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing is
+# set here. Otherwise the cache lives at a fixed path inside the
+# checkout: the path is part of no cache key, so it must not move.
 import os as _os
 
-# The dir is keyed by hostname + a hash of the host's CPU feature set:
-# CPU AOT executables embed host CPU features, and a cache written on
-# one machine SIGILLs/segfaults when loaded on another. Hostname alone
-# is NOT enough — containers respawn under the same name ("vm") on
-# different physical hosts, and the stale entries then load with
-# "machine feature ... not supported" warnings and eventually crash the
-# process inside the cache's native (de)serialization.
-import platform as _platform
+CHECKOUT = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
 
 
 def _cpu_fingerprint() -> str:
+    """Hash of the host CPU's feature flags. XLA:CPU executables embed
+    the features of the machine that compiled them, and one loaded on a
+    host without them can crash the process, so CPU-pinned processes
+    keep their entries in a subdirectory per feature set."""
     try:
         with open("/proc/cpuinfo") as f:
             for line in f:
@@ -62,16 +63,16 @@ def _cpu_fingerprint() -> str:
     return "nofp"
 
 
-_cache_dir = _os.environ.get(
-    "BWAMEM_TPU_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "bwamem_tpu",
-                  f"xla-{_platform.node()}-{_cpu_fingerprint()}"))
-try:
-    _os.makedirs(_cache_dir, exist_ok=True)
-    _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-except Exception:  # noqa: BLE001 — cache is best-effort
-    pass
+def _default_cache_dir() -> str:
+    d = _os.path.join(CHECKOUT, ".jax_cache")
+    if _os.environ.get("JAX_PLATFORMS", "").split(",")[0] == "cpu":
+        d = _os.path.join(d, "cpu-" + _cpu_fingerprint())
+    return d
+
+
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _default_cache_dir())
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
 
 
 def tune_cache_for_backend() -> None:

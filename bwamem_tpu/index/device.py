@@ -53,8 +53,7 @@ def build_occ2_host(idx: FMIndex):
               one nibble holds both the BWT char (low 2 bits) and the
               previous text char (high 2 bits), so pair rank AND
               single-code rank come from the same match chain with no
-              lane roll (rolls break XLA's gather-consumer fusion;
-              measured 2x trip cost)
+              lane roll (rolls break XLA's gather-consumer fusion)
     plus scalars: start2 (16,) first row of each 2-base prefix block,
     (sa1_j, sa1_pair) identifying the single row whose previous char is
     the sentinel (its packed BWT2 slot holds a bogus 0 that pair-rank
@@ -63,14 +62,11 @@ def build_occ2_host(idx: FMIndex):
 
     Single-code occ is recovered as sum_prev occ2[prev*4+cur] (+ the sa1
     correction), so this one table serves both the 2-step and 1-step
-    queries of the backward walk at 1 byte/base — small enough to stay
-    VMEM-resident for bacterial genomes, which is the regime where the
-    gather engine runs at full rate (measured 4x cliff once the gathered
-    table exceeds ~32 MB on the target chip).
+    queries of the backward walk at 1 byte/base.
 
     This halves the trip count of the backward SMEM walk and the SA
     lookup walk (the reference's per-base find_occ_gpu chains,
-    seed_gen.cu:160-272,607-663, were the pass-latency bound on TPU).
+    seed_gen.cu:160-272,607-663).
     """
     n = idx.seq_len
     primary = idx.primary
@@ -138,8 +134,8 @@ class DeviceFMIndex:
     #   rows [0, n_occ): occ checkpoints + packed bases;
     #   rows [n_occ, ..): sampled-SA bitmap blocks padded to width 8
     #   (single table so one fused gather pass serves the LF walk's occ
-    #   row AND the sampled-row test — dependent gather passes serialize
-    #   at fixed latency on TPU, see ops/fm.py)
+    #   row AND the sampled-row test — dependent gather passes
+    #   serialize, see ops/fm.py)
     L2: jax.Array              # (5,) int64 (counts can exceed 2^31)
     n_occ_blocks: jax.Array    # () int32 — offset of the SSA rows
     ssa_vals: jax.Array        # (n_sampled,) int32 (uint32 low words)
@@ -157,7 +153,7 @@ class DeviceFMIndex:
     sa_intv: int = field(metadata=dict(static=True), default=8)
     # static width switch: rows/positions are int64 only when the genome
     # needs >31 bits (human fwd+rev); small genomes keep the int32 fast
-    # path (int64 emulation costs ~35% measured end-to-end)
+    # path
     wide: bool = field(metadata=dict(static=True), default=False)
     # static switch for the 2-step (dinucleotide) walk kernels
     has_occ2: bool = field(metadata=dict(static=True), default=False)

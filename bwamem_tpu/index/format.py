@@ -1,4 +1,4 @@
-"""On-disk / in-memory FMD-index format, designed for TPU gathers.
+"""On-disk / in-memory FMD-index format, designed for batched device gathers.
 
 Differences from the reference's two-pass sed-patched format (reference:
 build_index.sh, bwa_index/bwtindex.c:151-198, SURVEY §2.2) — we keep the
@@ -13,7 +13,7 @@ layout:
     reference: seed_gen.cu:42-48,110-111).
   * Sampled suffix array by TEXT POSITION (SA value % sa_intv == 0), not by
     row index as the reference does (bwa_index/bwt.c:63-148): this bounds
-    the LF walk to < sa_intv steps, which a TPU fixed-trip loop needs.
+    the LF walk to < sa_intv steps, which a fixed-trip device loop needs.
       ssa_blocks: (n_sblocks, 4) uint32 — per 64 rows
         [rank_before, bits_lo(rows 0..31), bits_hi(rows 32..63), pad]
       ssa_vals: uint32 SA values of sampled rows, in row order.

@@ -24,7 +24,7 @@ The occ/data interleave of P.bwt is EXACTLY this framework's 32-byte occ
 row (index/format.py OCC_BLOCK_BASES=64 was chosen to mirror the GPU
 fetch unit), so the BWT ingest is a reshape. The suffix array needs real
 work: the reference samples by ROW (isa % intv == 0) while this
-framework samples by TEXT POSITION (sa % intv == 0) to bound the TPU LF
+framework samples by TEXT POSITION (sa % intv == 0) to bound the device LF
 walk — so ingest recovers the full SA with the O(seq_len) inverse-Psi
 walk (the same walk bwt_cal_sa used to build P.sa, bwa_index/bwt.c:
 121-148) and re-samples, cross-checking every reference sample on the

@@ -1,29 +1,27 @@
 """Batched FM-index primitives on device: occ, bi-interval extension, LF,
 SA lookup.
 
-TPU-native re-expression of the reference's GPU FM machinery
+Batched re-expression of the reference's GPU FM machinery
 (reference: src/GPUSeed/seed_gen.cu:57-272 pop_count/bwt_occ_gpu/
 find_occ4_gpu, :607-663 locate_seeds_gpu): rank queries are one 32-byte
 row gather (occ checkpoint + 64 packed bases) followed by masked 2-bit
-popcounts on the VPU; the SA walk is a fixed-trip LF loop bounded by the
+popcounts; the SA walk is a fixed-trip LF loop bounded by the
 text-position sampling interval (see index/format.py).
 
 Width conventions (genome scale: human fwd+rev needs 33-bit rows; the
 reference threads split 33-bit positions through its kernels,
 seed_gen.cu:530-531,943):
-  * BWT rows / text positions / interval sizes / L2: int64 (XLA lowers to
-    int32 pairs on TPU; these are a small share of the work — gathers
-    dominate);
+  * BWT rows / text positions / interval sizes / L2: int64 (a small
+    share of the work — gathers dominate);
   * occ block indices (row >> 6, < 2^27): int32 — gather indices stay
     narrow;
   * per-block checkpoint counts: uint32 in memory (each base's global
     count < 2^32), widened to int64 after the popcount.
 
-Performance notes baked into the shapes (measured on the target chip):
-dependent gather passes serialize at ~5 ms each regardless of fan-in, so
-rank pairs are fused into single passes; tiny-table lookups (a 4-entry
-L2, a 17-entry mask table) also lower to gathers and are computed
-arithmetically instead.
+Design notes baked into the shapes: dependent gather passes serialize,
+so rank pairs are fused into single passes; tiny-table lookups (a
+4-entry L2, a 17-entry mask table) would also lower to gathers and are
+computed arithmetically instead.
 """
 from __future__ import annotations
 
@@ -57,8 +55,7 @@ def _L2(fm):
 
 def _prefix_mask(r_w):
     """uint32 mask keeping the top 2*r_w bits, r_w in [0, 16] — computed
-    arithmetically (table lookups are gathers; even 17-entry gathers are
-    slow on the TPU VPU)."""
+    arithmetically (table lookups are gathers)."""
     full = _U32(0xFFFFFFFF)
     sh = jnp.clip(32 - 2 * r_w, 0, 31).astype(_U32)
     m = (full << sh) & full
@@ -66,7 +63,7 @@ def _prefix_mask(r_w):
 
 
 def _select4(vec4, c):
-    """vec4[c] for c in 0..3 without a gather (compare + sum on the VPU)."""
+    """vec4[c] for c in 0..3 without a gather (compare + sum)."""
     sel = (jnp.arange(4, dtype=jnp.int32) == c).astype(vec4.dtype)
     return (vec4 * sel).sum(dtype=vec4.dtype)
 
@@ -186,8 +183,8 @@ def _word_prefix_masks(r, W: int, data_lo: int, n_words: int):
     """(P, W) uint32 per-column prefix masks: packed-data column
     data_lo + w keeps its first clip(r - 16w) bases; all other columns 0.
     Lets rank kernels consume gathered rows WHOLE — slicing a gathered
-    array makes XLA fission the gather into one narrow gather per slice
-    (measured 5x cost at P=1M on the target chip)."""
+    array makes XLA fission the gather into one narrow gather per
+    slice."""
     col = jnp.arange(W, dtype=jnp.int32)[None, :]
     w_of = col - data_lo
     pm = _prefix_mask(jnp.clip(r[:, None] - 16 * w_of, 0, 16))

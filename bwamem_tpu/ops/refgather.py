@@ -2,7 +2,7 @@
 
 Equivalent of bns_get_seq/bns_fetch_seq (reference: src/bntseq.c, and the
 commented-out direct-to-device fetch bns_get_seq_gpu at src/bntseq.c:429)
-but running on the TPU: positions in doubled (fwd+rev) coordinates index
+but running on the device: positions in doubled (fwd+rev) coordinates index
 pac_words; reverse-strand positions map to complemented forward bases.
 Out-of-range positions yield code 4 so downstream scoring treats them as
 ambiguous padding.

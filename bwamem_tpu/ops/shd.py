@@ -1,4 +1,4 @@
-"""Shifted-Hamming-Distance seed pre-filter — TPU re-design of the
+"""Shifted-Hamming-Distance seed pre-filter — batched re-design of the
 reference's SSE SHD library (reference: src/vector_filter.cpp:294-370
 bit_vec_filter_m128_sse1, src/bit_convert.cpp, src/mask.cpp; gated by the
 -F flag via mem_shd_flt_chained_seeds, src/bwamem.c:809-969).
@@ -6,11 +6,10 @@ bit_vec_filter_m128_sse1, src/bit_convert.cpp, src/mask.cpp; gated by the
 The SSE version packs 128 bases into two 1-bit planes per m128 register and
 ANDs XOR masks across read/ref shifts of 0..max_error, bridging short
 zero-runs ("speculative removal": a lone match between mismatches is a
-false match — SHD, Xin et al. 2015). On TPU there is no reason to bit-pack:
-the (batch, window) plane IS the vector lane layout, shifts are lane
-slices, and the whole filter is a handful of elementwise bool ops + one
-reduction — pure VPU work, batched over every flank window of a chunk in
-one launch.
+false match — SHD, Xin et al. 2015). Here there is no bit-packing: the
+(batch, window) plane is the array layout, shifts are slices, and the
+whole filter is a handful of elementwise bool ops + one reduction,
+batched over every flank window of a chunk in one launch.
 
 Semantics (cleaned up vs the reference, which leaves tail bytes of the
 shorter window unmasked at shift 0): a position participates only when

@@ -4,7 +4,7 @@ These reproduce, step for step, the observable semantics of the reference's
 CPU kernels (reference: src/ksw.c:864-988 ksw_extend2, the executable
 contract for the GPU extension library per decoy_cpu_align
 src/bwamem.c:1791-1908; and src/ksw.c ksw_global2 for CIGAR generation).
-They anchor the tests of the batched TPU kernels in ops/.
+They anchor the tests of the batched device DPs in ops/.
 """
 from __future__ import annotations
 

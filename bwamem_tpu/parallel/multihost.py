@@ -1,10 +1,10 @@
 """Multi-host (N>=2 processes) data path.
 
 The reference is strictly single-node — SURVEY §2.5 lists "distributed
-comm backend" as the one TPU-native ADDITION this framework owes beyond
-the fork's pthread pool (src/kthread.c) + single-GPU design. BWA-MEM is
-data-parallel over reads, so the TPU-native scale-out keeps ALL traffic
-off the cross-host network:
+comm backend" as the one ADDITION this framework owes beyond the fork's
+pthread pool (src/kthread.c) + single-GPU design. BWA-MEM is
+data-parallel over reads, so the scale-out keeps ALL traffic off the
+cross-host network:
 
   * `jax.distributed.initialize` wires the processes into one runtime
     (control plane only — heartbeats, barrier at init);

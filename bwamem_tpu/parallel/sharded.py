@@ -1,14 +1,14 @@
 """Multi-chip data-parallel alignment over a jax.sharding.Mesh.
 
 Replaces the reference's pthread pool + single-GPU design (SURVEY §2.5:
-the reference has NO distributed backend) with the TPU-native layout:
+the reference has NO distributed backend) with this layout:
 
   * the FMD index is REPLICATED per chip (P() specs — human-scale occ+SA
     fit in HBM),
   * read batches are SHARDED over the 'data' mesh axis,
   * per-shard results stay SHARD-RESIDENT (P(axis) out_specs reassemble
     them in range order at the jit boundary) — emit consumes per-shard
-    slices, so no O(global) allgather rides ICI; only scalar counters are
+    slices, so no O(global) allgather crosses NVLink; only scalar counters are
     psum'd. Multi-HOST scale-out is a separate layer (multihost.py):
     hosts own disjoint read ranges, so nothing crosses DCN.
 
@@ -108,8 +108,8 @@ def sharded_seed_batch(mesh: Mesh, fm: DeviceFMIndex, reads, lens, cfg,
         # pools stay SHARD-RESIDENT (out_specs P(axis) concatenates the
         # per-shard slices in axis order — read_id stays globally sorted,
         # consumers select on `valid`); only the two scalars ride a psum.
-        # The previous all_gather here was O(global pool) ICI traffic per
-        # chip per step — the wrong shape for a pod slice.
+        # An all_gather here would be O(global pool) traffic per device
+        # per step.
         n_seeds = jax.lax.psum(out.pop("n_seeds"), axis)
         out.pop("need", None)
         over_mult = jax.lax.pmax(out.pop("over_mult"), axis)

@@ -1,12 +1,12 @@
 """Host worker pool for the per-read finalization stage.
 
-TPU-native stand-in for the reference's kt_for thread pool running worker2
+Stand-in for the reference's kt_for thread pool running worker2
 (reference: src/kthread.c:240 kt_for + src/bwamem.c:2451-2469 worker2,
 launched at :2512). Python threads cannot parallelize this CPU-bound stage
 (GIL), so the pool forks worker processes. Two constraints shape the
 design:
 
-  * fork must happen BEFORE any JAX/TPU client initialization (forking a
+  * fork must happen BEFORE any JAX device client initialization (forking a
     process with live device-runtime threads can deadlock the children),
     so the pool is built from (options, host FMIndex) only — the emit
     stage touches NumPy and the native C++ kernels, never the device;

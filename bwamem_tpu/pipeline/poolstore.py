@@ -33,10 +33,10 @@ POOL_CAPS = {"cand_pool": 4096, "r2_pool": 1024,
 
 
 def default_path() -> str:
-    return os.environ.get(
-        "BWAMEM_TPU_POOLS",
-        os.path.join(os.path.expanduser("~"), ".cache", "bwamem_tpu",
-                     "pools.json"))
+    from .. import CHECKOUT
+
+    return os.environ.get("BWAMEM_TPU_POOLS",
+                          os.path.join(CHECKOUT, ".pools.json"))
 
 
 def _quant(x: float) -> int:
@@ -54,8 +54,7 @@ def _quant(x: float) -> int:
 # retry self-corrects an underestimate and raises the stored hwm).
 # 1.2: the hwm is already a MAX over every chunk seen for the class,
 # and pool width is paid every chunk in backward-walk lanes (the
-# round-2 walk over B*r2_cand lanes is the largest seeding stage —
-# BENCH_BREAKDOWN round-5 correction)
+# round-2 walk over B*r2_cand lanes is the largest seeding stage)
 _HWM_MARGIN = 1.2
 
 

@@ -4,8 +4,8 @@ The native collect path (aligner._collect_native) produces flat
 survivor arrays, and the native finalize path consumes flat arrays
 (native/loader.py:_reg_arrays). The AlnReg object round-trip between
 them — build ~28k dataclass objects per 16k-read chunk, then
-immediately re-flatten them — was pure GIL-holding Python overhead
-(~0.16 s/chunk on chip, BENCH_BREAKDOWN.md). This container carries
+immediately re-flatten them — was pure GIL-holding Python overhead.
+This container carries
 the arrays straight through HostPool.emit_se; Python consumers (int
 indexing, iteration — tests, the PE pairing path, verbose dumps) get
 AlnReg lists materialized on demand.

@@ -78,7 +78,7 @@ extern "C" int64_t bm_chain2aln_batch(
     // j_tstart/j_dir) let the DEVICE gather job sequences itself: query
     // base i = read[j_read][j_qstart + j_dir*i], target base i =
     // pac_doubled[j_tstart + j_dir*i] — so only ~20 bytes/job ride the
-    // host->device tunnel instead of materialized Q/T tiles.
+    // host->device link instead of materialized Q/T tiles.
     int64_t* j_reg, int8_t* j_side, int32_t* j_h0, int32_t* j_qlen,
     int32_t* j_tlen, int64_t* j_qoff, int64_t* j_toff,
     int32_t* j_read, int32_t* j_qstart, int64_t* j_tstart, int8_t* j_dir,

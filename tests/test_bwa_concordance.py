@@ -65,8 +65,7 @@ def test_se_concordance(world):
 
 def test_longread_concordance(world):
     """1 kbp reads with indel errors: exercises the long-read extension
-    path (banded sliding-window kernel on TPU backends, ops/pallas/
-    extend_banded.py; band-equivalent lax twin elsewhere) against the
+    path (the dense DP with the band applied as a mask) against the
     independent oracle. The reference cannot run this regime at all
     (GASAL2 MAX_SEQ_LEN=300) — parity target is vanilla bwa itself.
     Prototype run: 150/150 exact (pos+strand+CIGAR) at seed 41."""

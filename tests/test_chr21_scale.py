@@ -1,7 +1,6 @@
 """chr21-scale (46.7 Mbp) end-to-end: build, align, oracle concordance.
 
-Closes VERDICT-1's "the chr21-scale claim is not a test in the suite":
-a repeat-rich genome at the BASELINE config-2 size (hg38 chr21,
+Makes the chr21-scale claim a test in the suite: a repeat-rich genome at the BASELINE config-2 size (hg38 chr21,
 46,709,983 bp) goes through the REAL toolchain — native SA-IS index
 build, the full aligner pipeline, and vanilla-bwa concordance — not a
 seeding-only microcheck. Opt-in (BWAMEM_TPU_SCALE=1): the run costs

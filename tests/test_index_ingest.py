@@ -69,8 +69,8 @@ def test_ingest_structures_match_native_build(ref_index):
 
 
 def test_ingested_index_seeds_identically(ref_index):
-    """Identical seed lists from both index sources (the VERDICT-1 #5
-    acceptance: same FASTA, two index pipelines, same seeds)."""
+    """Identical seed lists from both index sources (same FASTA, two
+    index pipelines, same seeds)."""
     from bwamem_tpu.pipeline.aligner import MemAligner
     from bwamem_tpu.pipeline.options import MemOptions
 

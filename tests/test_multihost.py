@@ -1,6 +1,6 @@
 """Multi-host (N=2 process) data-path parity.
 
-The TPU-native distributed design (parallel/multihost.py): hosts own
+The distributed design (parallel/multihost.py): hosts own
 contiguous record ranges, align on local chips, write ordered SAM
 shards, host 0 cats. These tests spawn two real CLI processes (CPU
 backend) over a shared fixture and require the merged output to be

@@ -2,7 +2,7 @@
 and end-to-end seeding parity vs the single-step walk.
 
 The occ2 table halves the serial gather-pass chains of the backward SMEM
-walk and the SA lookup (the TPU analog of the reference's per-base
+walk and the SA lookup (the batched analog of the reference's per-base
 find_occ_gpu chains, seed_gen.cu:160-272,607-663).
 """
 import jax

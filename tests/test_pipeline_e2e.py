@@ -143,7 +143,7 @@ def test_fastmap_output_format(tmp_path, capsys=None):
     fq = tmp_path / "q.fq"
     fq.write_text(f"@q0\n{s}\n+\n{'I' * 120}\n")
     # Force the child onto the CPU backend so it never contends with the
-    # parent for the single real TPU chip (see tests/test_cli_io.py).
+    # parent for a single device (see tests/test_cli_io.py).
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": "/root/repo"}
     out = subprocess.run(
         [sys.executable, "-m", "bwamem_tpu", "fastmap",

@@ -1,9 +1,9 @@
 """Default-CI mid-scale slice: 5 Mbp REPEAT-RICH simulated genome,
 e2e alignment truth + vanilla-bwa concordance.
 
-VERDICT r3 weak #3: the default suite's largest genomes were uniform
+Without it the default suite's largest genomes would be uniform
 random (test_ecoli_scale, 4.6 Mbp) or small repeat-rich (220 kbp
-concordance fixtures) — nothing exercised the repeat-heavy regime
+concordance fixtures) — nothing would exercise the repeat-heavy regime
 (SINEs, microsatellites, segdups) at Mbp scale un-gated. This module
 runs it on every CI pass; the multi-Gbp rehearsal stays opt-in
 (test_chr21_scale / BWAMEM_TPU_SCALE=1).

@@ -1,5 +1,5 @@
-"""Pallas local-SW (ksw_align2) kernel vs the lax reference path
-(interpret mode on CPU; on TPU the same kernel runs compiled).
+"""GPU local-SW (ksw_align2) kernel vs the lax reference path, in the
+Pallas interpreter on the CPU (compiled on the card: test_gpu_kernels.py).
 
 The lax path (ops/swalign.py) is itself tested against the scalar ksw
 oracle in test_pairing.py, so exact agreement here transitively pins the
@@ -11,8 +11,7 @@ import numpy as np
 import pytest
 
 from bwamem_tpu.ops.extend import make_score_matrix
-from bwamem_tpu.ops.pallas.swalign_kernel import (
-    SW_STACK_KEYS, sw_align_batch_pallas_stacked)
+from bwamem_tpu.ops.pallas.dp_kernel import sw_align_batch_gpu_stacked
 from bwamem_tpu.ops.swalign import SW_KEYS, sw_align_batch
 
 
@@ -65,11 +64,9 @@ def test_pallas_sw_matches_lax(seed, odel, edel, oins, eins):
                              jnp.asarray(ql), jnp.asarray(tl),
                              jnp.asarray(mat), jnp.asarray(minsc),
                              odel, edel, oins, eins, a)
-    pal = np.asarray(sw_align_batch_pallas_stacked(
+    pal = np.asarray(sw_align_batch_gpu_stacked(
         jnp.asarray(Q), jnp.asarray(T), jnp.asarray(ql), jnp.asarray(tl),
-        jnp.asarray(minsc), a, b, odel, edel, oins, eins,
-        tile=8, interpret=True))
-    assert SW_STACK_KEYS == SW_KEYS
+        jnp.asarray(minsc), a, b, odel, edel, oins, eins, interpret=True))
     for ki, k in enumerate(SW_KEYS):
         np.testing.assert_array_equal(pal[ki], np.asarray(lax_out[k]),
                                       err_msg=k)
@@ -93,21 +90,21 @@ def test_pallas_sw_degenerate_lanes():
                              jnp.asarray(ql), jnp.asarray(tl),
                              jnp.asarray(mat), jnp.asarray(minsc),
                              6, 1, 6, 1, a)
-    pal = np.asarray(sw_align_batch_pallas_stacked(
+    pal = np.asarray(sw_align_batch_gpu_stacked(
         jnp.asarray(Q), jnp.asarray(T), jnp.asarray(ql), jnp.asarray(tl),
-        jnp.asarray(minsc), a, b, 6, 1, 6, 1, tile=8, interpret=True))
+        jnp.asarray(minsc), a, b, 6, 1, 6, 1, interpret=True))
     for ki, k in enumerate(SW_KEYS):
         np.testing.assert_array_equal(pal[ki], np.asarray(lax_out[k]),
                                       err_msg=k)
 
 
 def test_rescue_descriptor_path_matches_host(tiny_index):
-    """sw_rescue_desc_stacked (device window gather + Pallas kernel,
-    interpret mode) == sw_align_batch_stacked on host-fetched windows —
-    the two _run_sw_jobs dispatch arms of pipeline/pairing.py."""
-    import jax
-
+    """sw_rescue_desc_stacked (device window gather + the DP) ==
+    sw_align_batch_stacked on host-fetched windows — the two _run_sw_jobs
+    arms of pipeline/pairing.py — and the GPU kernel (interpret mode) on
+    the device-gathered windows agrees too."""
     from bwamem_tpu.index.device import DeviceFMIndex
+    from bwamem_tpu.ops.refgather import gather_window_fast
     from bwamem_tpu.ops.swalign import (sw_align_batch_stacked,
                                         sw_rescue_desc_stacked)
     from bwamem_tpu.pipeline.options import MemOptions
@@ -153,15 +150,19 @@ def test_rescue_descriptor_path_matches_host(tiny_index):
     desc = np.asarray(sw_rescue_desc_stacked(
         fm, jnp.asarray(Q.astype(np.int8)), jnp.asarray(ql),
         jnp.asarray(rb), jnp.asarray(tl), jnp.asarray(minsc),
-        opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
-        TMAX, interpret=True))
+        opt.a, opt.b, opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, TMAX))
     np.testing.assert_array_equal(desc, host)
+    kern = np.asarray(sw_align_batch_gpu_stacked(
+        jnp.asarray(Q), gather_window_fast(fm, jnp.asarray(rb), TMAX),
+        jnp.asarray(ql), jnp.asarray(tl), jnp.asarray(minsc), opt.a, opt.b,
+        opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, interpret=True))
+    np.testing.assert_array_equal(kern, host)
 
 
-def test_rescue_batch_desc_equals_host(tiny_index, monkeypatch):
-    """mem_pe_rescue_batch with the descriptor/Pallas arm forced on
-    (interpret mode) mutates pair_regs identically to the default
-    host-window lax arm."""
+def test_rescue_batch_desc_equals_host(tiny_index):
+    """mem_pe_rescue_batch on the descriptor arm (the product path, given
+    the device index) mutates pair_regs identically to the host-window
+    reference arm (no device index)."""
     import copy
 
     from bwamem_tpu.pipeline import pairing
@@ -195,8 +196,7 @@ def test_rescue_batch_desc_equals_host(tiny_index, monkeypatch):
 
     host_regs = regs()
     n_host = pairing.mem_pe_rescue_batch(al.opt, idx, pes, pair_seqs,
-                                         host_regs, dev=al.fm)
-    monkeypatch.setattr(pairing, "_use_desc_rescue", lambda d: d is not None)
+                                         host_regs, dev=None)
     desc_regs = regs()
     n_desc = pairing.mem_pe_rescue_batch(al.opt, idx, pes, pair_seqs,
                                          desc_regs, dev=al.fm)

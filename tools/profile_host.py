@@ -1,11 +1,11 @@
 """Host-side span profiler for the SE/PE pipeline.
 
 Runs one chunk through MemAligner with fine-grained Timings attached and
-prints the span report. Device spans are only meaningful on the real
-chip; on the CPU backend (JAX_PLATFORMS=cpu) the HOST spans (chaining,
+prints the span report. Device spans are only meaningful on the card;
+on the CPU backend (JAX_PLATFORMS=cpu) the HOST spans (chaining,
 chain2aln, merge, dedup, object construction, pestat, rescue build,
 finalize) are representative — use this to find Python/host hotspots
-while the chip is unavailable.
+without the card.
 
 Usage: python tools/profile_host.py [--pe] [--batch N] [--genome N]
 """

@@ -161,8 +161,7 @@ def main(argv=None):
     import numpy as np
 
     if os.environ.get("CONCORD_CPU", "1") == "1":
-        import jax
-        jax.config.update("jax_platforms", "cpu")
+        os.environ["JAX_PLATFORMS"] = "cpu"  # before the first jax import
     from bwamem_tpu.utils import simgenome as simmod
 
     ensure_oracle()

@@ -1,4 +1,4 @@
-"""On-chip anatomy of the seeding program: which reseed component costs.
+"""On-card anatomy of the seeding program: which reseed component costs.
 
 Times smem_seed_batch_stacked variants on the bench workload:
   a) reseed OFF
